@@ -5,7 +5,7 @@ Every recorded docs/s number so far used fixed-length documents
 (bench.py: 300 tokens; podscale/1M: uniform L=300), where bucketing by
 construction does nothing.  The subsystem it prices
 (corpus/bucketing.py, SURVEY §5) exists for SKEWED real corpora: docs
-padded to the global max length burn E-step FLOPs and HBM on padding.
+padded to the global max length burn E-step FLOPs and memory on padding.
 This benchmark measures that for the first time.
 
 Config: the headline cell (K=100, V=10k, N=8,192, B=256) with doc
@@ -25,7 +25,7 @@ same-graph warm call.  Also records each plan's padded area (the waste
 being recovered) and the per-variant bound at the first timed iteration
 (identical model: bucketing is a storage-order change only).
 
-Usage:  python benchmarks/bucketing_perf.py     (cwd = repo root, TPU)
+Usage:  python benchmarks/bucketing_perf.py     (cwd = repo root, GPU)
 Writes benchmarks/results_bucketing_perf.json.
 """
 
@@ -33,8 +33,9 @@ import json
 import os
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

@@ -26,8 +26,9 @@ import json
 import os
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

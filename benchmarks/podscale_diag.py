@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Diagnose the round-1 pod-scale bound decline (VERDICT.md weak #2).
 
-Reproduces the podscale_demo DGP (K=100, V=50k, 300 words/doc, STM-OLS
-prevalence) at an oracle-tractable N, then runs BOTH our TPU-path EM
+Reproduces the scaled-synthetic DGP (K=100, V=50k, 300 words/doc, STM-OLS
+prevalence) at an oracle-tractable N, then runs BOTH our device-path EM
 (on CPU here, float32) and the float64 scipy oracle (fit_stm_ols) on
 the SAME documents/covariates with the SAME seed-123456 init, printing
 the two bound trajectories side by side plus per-iteration Newton
@@ -17,8 +17,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -30,7 +31,7 @@ OUT = os.path.join(HERE, "results_podscale_diag.json")
 
 
 def make_docs():
-    """Same DGP as podscale_demo.py (seed 0), BoW-list format."""
+    """The scaled-synthetic DGP (seed 0), BoW-list format."""
     rng = np.random.default_rng(0)
     beta_true = rng.dirichlet(np.full(V, 0.02), size=K).astype(np.float64)
     eta = rng.normal(0.0, 1.0, (N, K - 1))
@@ -84,7 +85,7 @@ def main():
     oracle_bounds, *_ = fit_stm_ols(docs, model.V, K, X, n_iter=ITERS)
     print(f"oracle done in {time.time()-t0:.0f}s", flush=True)
 
-    print(f"{'iter':>4} {'ours (f32 TPU-path)':>22} {'oracle (f64 scipy)':>22} "
+    print(f"{'iter':>4} {'ours (f32 device path)':>22} {'oracle (f64 scipy)':>22} "
           f"{'rel diff':>10}")
     for i, (a, b) in enumerate(zip(ours, oracle_bounds)):
         print(f"{i:>4} {a:>22.2f} {b:>22.2f} {abs(a-b)/abs(b):>10.2e}")

@@ -13,7 +13,7 @@ under-steps toward the prior) acts as implicit shrinkage, which wins
 on a 1,015-doc corpus at K=50.  The principled response is explicit,
 documented shrinkage, not bug emulation.
 
-CPU run (TPU is busy with findk_1m; N=1015 is CPU-friendly).
+CPU run (N=1015 is CPU-friendly).
 
 Usage: python benchmarks/quality_h2h_refinit_knobs.py
 Writes benchmarks/results_quality_h2h_refinit_knobs.json incrementally.

@@ -16,7 +16,7 @@ is, after z = -x, exactly NNLS  min_{z>=0} ||M^T z - y||  (PARITY_NOTES
 s.t. z >= 0 — scipy.optimize.nnls, active-set, exact.  This runs the
 reference's own spectral_init end-to-end, not an approximation of it.
 
-Phases (env H2H_SIDE=ours|ref|both, default both): ours needs the TPU
+Phases (env H2H_SIDE=ours|ref|both, default both): ours needs the GPU
 (fast), ref is hours of serial CPU — run them in separate windows.
 Both write into benchmarks/results_quality_h2h_spectral.json.
 
@@ -30,8 +30,9 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 HERE = (os.path.dirname(os.path.abspath(__file__))
         if "__file__" in globals() and "<" not in str(globals().get("__file__"))

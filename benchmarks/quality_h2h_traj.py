@@ -24,7 +24,7 @@ out (full_budget == default).  Remaining hypotheses:
 
 This script measures all three:
 
-  python benchmarks/quality_h2h_traj.py ours    # ~5 min TPU (warm)
+  python benchmarks/quality_h2h_traj.py ours    # GPU
   python benchmarks/quality_h2h_traj.py ref     # ~16 min CPU
   python benchmarks/quality_h2h_traj.py cross   # instant (reads .npz)
 
@@ -46,8 +46,9 @@ import sys
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 HERE = os.path.join(os.path.abspath(os.getcwd()), "benchmarks")
 sys.path.insert(0, HERE)

@@ -13,7 +13,7 @@ final bound is -472,991.13 (BASELINE.md) — same config, so the live
 run must land in that neighborhood (seed state differs from the
 original joblib run, exact equality is not expected).
 
-Then the same config through strutopy_tpu on the TPU, reporting both
+Then the same config through strutopy_tpu on the GPU, reporting both
 wall-clocks and final bounds.  Nothing is written under
 /root/reference (saving=False; reference logging goes to stderr).
 
@@ -27,8 +27,9 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 REF = "/root/reference/src"
 WIKI = os.path.join(REF, "artifacts/wiki_data")
@@ -130,7 +131,7 @@ def main():
     print("reference fit (their code, CPU serial)...", flush=True)
     ref = run_reference(docs, vocab, xmat)
     print(json.dumps(ref, indent=2), flush=True)
-    print("strutopy_tpu fit (one v5e chip)...", flush=True)
+    print("strutopy_tpu fit (one device)...", flush=True)
     ours = run_ours(docs, vocab, xmat)
     print(json.dumps(ours, indent=2), flush=True)
     res = {

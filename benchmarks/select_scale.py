@@ -1,11 +1,11 @@
-"""select_model at scale on real TPU: the one-compile restart sweep.
+"""select_model at scale on the GPU: the one-compile restart sweep.
 
-The TPU-first claim in pipeline.select_model's docstring is that a
+The claim in pipeline.select_model's docstring is that a
 multi-restart sweep costs ONE compile plus
 ``runs * cast_iters + keep * (max_em_iter - cast_iters)`` iterations
 of chip time, because every restart flows through the same compiled EM
 program (STM.reinitialize swaps the random state under the program).
-This measures that on v5e at a scale where it matters — N=20k docs,
+This measures that at a scale where it matters — N=20k docs,
 K=25, V=10k (the wiki demo in wiki_select.py is CPU-bound at N=1,015).
 
 Records: total sweep wall-clock, the first cast fit (which pays the
@@ -22,8 +22,9 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/strutopy_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from strutopy_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 HERE = (os.path.dirname(os.path.abspath(__file__))
         if "__file__" in globals() and "<" not in str(__file__)
@@ -59,7 +60,7 @@ def main():
     out = {
         "config": {"N": N, "K": K, "V": V, "tokens_per_doc": L,
                    "runs": RUNS, "cast_iters": CAST, "keep": KEEP,
-                   "max_em_iter": MAXIT, "platform": "tpu"},
+                   "max_em_iter": MAXIT, "platform": "gpu"},
         "warmup_1restart_seconds": round(compile_s, 1),
         "sweep_seconds": round(sweep_s, 1),
         "em_iterations": iters,

@@ -16,7 +16,7 @@ the gap:
      score each with the f64 completion heldout.
 
 Writes benchmarks/results_spectral_init_diag.json incrementally.
-Pure CPU — safe to run while the TPU holds another job.
+Pure CPU — safe to run while the GPU holds another job.
 
 Usage: python benchmarks/spectral_init_diag.py
 """

@@ -17,7 +17,7 @@ variants, and the topic's real top words via the gensim dictionary
 reader — so the output is checkable by eye (statistics-flavored topics
 must move positively with X=1, ML/software topics negatively).
 
-Run from the repo root on the TPU:  python - < benchmarks/wiki_effects.py
+Run from the repo root on the GPU:  python - < benchmarks/wiki_effects.py
 """
 
 import json

@@ -9,7 +9,7 @@ iters, fast transform-based completion) and records every diagnostic
 R-stm's searchK would show: heldout, converged bound, semantic
 coherence, exclusivity, Taddy residual dispersion, wall-clock.
 
-Run from the repo root on the TPU:  python - < benchmarks/wiki_searchk.py
+Run from the repo root on the GPU:  python - < benchmarks/wiki_searchk.py
 """
 
 import json

@@ -1,13 +1,13 @@
-"""strutopy_tpu — a TPU-native Structural Topic Model framework.
+"""strutopy_tpu — a Structural Topic Model framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference implementation ``mkrcke/strutopy`` (pure NumPy/SciPy STM):
 variational-EM fitting of STM/CTM logistic-normal topic models with
 topical-prevalence and topical-content covariates, spectral (anchor
 word) initialization, synthetic-corpus generation, document-completion
 heldout likelihood and FREX/coherence/exclusivity topic diagnostics.
 
-Architecture (TPU-first, not a port):
+Architecture (batched for an accelerator, not a port):
   * documents are padded dense ``(N, L)`` arrays, not python lists
     (reference: list-of-tuples BoW, src/modules/stm.py:331).
   * the per-document E-step is a batched, fixed-shape damped-Newton

@@ -13,8 +13,8 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import pickle
-import sys
 
 import numpy as np
 
@@ -29,7 +29,7 @@ def _load_corpus(path):
     if path.endswith(".mm"):
         # C++ parse+pack when the native lib is available (exact python
         # parity, tests/test_wiki_real_data.py) — the python loop is the
-        # bulk-serving bottleneck at scale (RESULTS.md serving section)
+        # bulk-serving bottleneck at scale
         from strutopy_tpu.corpus import native
 
         pc = native.read_mm_padded(path)
@@ -59,14 +59,30 @@ def _mesh_from_args(args):
     return None
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+def _select_platform(platform: str) -> None:
+    """Apply ``--platform`` before any device use; ``gpu`` exits when
+    there is no CUDA GPU instead of falling back to the CPU."""
+    if platform == "auto":
+        return
+    import jax
+
+    from strutopy_tpu.utils.runtime import require_gpu
+
+    if platform == "cpu":
+        jax.config.update("jax_platforms", "cpu")
+    else:
+        jax.config.update("jax_platforms", "cuda")
+        require_gpu("--platform gpu")
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="strutopy_tpu")
     ap.add_argument(
         "--platform",
-        choices=["auto", "cpu", "tpu"],
+        choices=["auto", "cpu", "gpu"],
         default="auto",
-        help="force the JAX backend (default: auto-detected)",
+        help="force the JAX backend (default: auto-detected); gpu fails "
+             "when no CUDA GPU is available",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -155,15 +171,18 @@ def main(argv=None):
     p.add_argument("--X", type=str, default=None, help="covariates .npy for the new docs")
     p.add_argument("--out", type=str, required=True, help="output theta .npy")
 
-    sub.add_parser("bench", help="run the E-step throughput benchmark")
+    sub.add_parser("bench", help="run the E-step throughput benchmark (GPU)")
+    return ap
 
-    args = ap.parse_args(argv)
 
-    if args.platform == "cpu":
-        import jax
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    args = build_parser().parse_args(argv)
+    _select_platform(args.platform)
 
-        jax.config.update("jax_platforms", "cpu")
-    # "tpu"/"auto": let the installed TPU plugin take priority
+    from strutopy_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.cmd == "synth":
         from strutopy_tpu.pipeline import create_synthetic_corpora
@@ -205,8 +224,6 @@ def main(argv=None):
         print(f"final bound: {model.last_bounds[-1]:.2f}; artifacts in {args.out}")
 
     elif args.cmd == "train-eval":
-        import os
-
         from strutopy_tpu.pipeline import train_and_eval_heldout
 
         with open(os.path.join(args.corpus_dir, "train_docs.pickle"), "rb") as f:
@@ -313,9 +330,10 @@ def main(argv=None):
         print(f"wrote theta {theta.shape} to {args.out}")
 
     elif args.cmd == "bench":
-        import subprocess
+        # in-process: one process per card
+        from strutopy_tpu.bench import main as bench_main
 
-        sys.exit(subprocess.call([sys.executable, "bench.py"]))
+        bench_main()
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 The reference represents a document as a python list of ``(word_idx,
 count)`` tuples (gensim convention, see reference src/modules/stm.py:331
 and create_dtm at src/modules/stm.py:87-119).  Ragged python lists
-cannot be batched on a TPU, so the framework's native representation is
+cannot be batched on an accelerator, so the framework's native representation is
 a pair of dense, padded arrays:
 
   * ``words``  int32 ``(N, L)`` — unique term ids per document, padded
@@ -12,8 +12,8 @@ a pair of dense, padded arrays:
     (the count array doubles as the validity mask).
 
 ``L`` is the maximum number of *unique* terms in any document, rounded
-up to a multiple of the TPU lane width (128) so every gather/contraction
-tiles cleanly onto the VPU/MXU.
+up to a multiple of 128, so documents fall into few padded shapes and
+every gather/contraction has a power-of-two-friendly width.
 """
 
 from __future__ import annotations
@@ -187,7 +187,7 @@ def create_dtm(documents, V: int | None = None) -> np.ndarray:
     """Dense document-term matrix (D, V) from BoW or PaddedCorpus.
 
     The reference builds a scipy CSR matrix (src/modules/stm.py:87-119);
-    on TPU the DTM only exists as an intermediate of spectral init and
+    on the device the DTM only exists as an intermediate of spectral init and
     evaluation, where a dense device array (sharded by documents for
     large corpora) feeds the Gram matmul directly, so dense float64 on
     host is the canonical small-corpus form.

@@ -189,8 +189,8 @@ def align_corpus(
     if use_native and docs and all(isinstance(d, str) for d in docs):
         # hot path for raw-text serving: tokenize + count in C++
         # against a per-request vocabulary, then remap per TYPE (the
-        # python per-token loop caps at ~3k docs/s — below the TPU
-        # bulk-inference rate, so encoding would bottleneck serving)
+        # python per-token loop caps at ~3k docs/s on the host, so
+        # encoding would bottleneck bulk serving)
         from strutopy_tpu.corpus import native
 
         res = native.build_bow(docs, stopwords)

@@ -175,18 +175,22 @@ class CorpusCreation:
 
     def _sample_documents(self):
         if self.dgp == "LDA" and self.treatment:
-            p = np.concatenate(
-                [self.theta @ self.beta, self.theta_treatment @ self.beta], axis=0
-            )
+            theta = np.concatenate([self.theta, self.theta_treatment], axis=0)
         else:
-            p = self.theta @ self.beta
-        self.p = p
+            theta = self.theta
 
         documents = []
         new_ids: dict = {}
         nxt = 0
+        # word distributions theta @ beta one block of documents at a
+        # time: the whole (n_docs, V) matrix is 40 GB at N=100k, V=50k.
+        # Corpora of at most one block sample exactly as a single
+        # product would; larger ones may differ in the last bits of p.
+        block = 2048
         for d in range(self.n_docs):
-            draw = self.rng.multinomial(self.n_words, p[d])
+            if d % block == 0:
+                p = theta[d:d + block] @ self.beta
+            draw = self.rng.multinomial(self.n_words, p[d % block])
             idx = np.nonzero(draw)[0]
             # remap vocabulary ids in first-seen order (reference
             # generate_docs.py:303-316)

@@ -17,7 +17,7 @@ implements the same protocol without glmnet/sklearn:
     (the glmnet ``cv.glmnet`` rule), and the selected-topic report.
 
 All solvers are plain NumPy — the design here is (N, K+P) with K ≤ a
-few hundred, so this is host-side analysis, not a TPU kernel.
+few hundred, so this is host-side analysis, not a device kernel.
 """
 
 from __future__ import annotations

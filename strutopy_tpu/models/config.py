@@ -12,13 +12,19 @@ import dataclasses
 import json
 
 
+# execution options of kernels that no longer exist; saved configs may
+# still name them (see STMConfig.from_json)
+_RETIRED_FIELDS = ("use_pallas", "pallas_fgh", "pallas_cg", "pallas_ls",
+                   "pallas_iter", "pallas_block", "cg_chunk_docs")
+
+
 @dataclasses.dataclass(frozen=True)
 class STMConfig:
     """Configuration of an STM/CTM fit.
 
     Field names mirror the reference ``STM.__init__`` kwargs
     (reference src/modules/stm.py:311-329) so users of the reference
-    can map 1:1; TPU-execution knobs are grouped at the bottom.
+    can map 1:1; execution knobs are grouped at the bottom.
     """
 
     K: int
@@ -32,8 +38,7 @@ class STMConfig:
     # reference's update_beta exactly (stm.py:739-745: bare
     # row-normalize, so words unseen in training get beta=0 and any
     # heldout occurrence scores -inf); a small value (e.g. 0.01..0.05)
-    # keeps every word representable — measured on the wiki completion
-    # heldout in RESULTS.md.
+    # keeps every word representable in a completion heldout.
     beta_smoothing: float = 0.0
     # prevalence regression
     model_type: str = "STM"  # "STM" | "CTM"
@@ -67,8 +72,8 @@ class STMConfig:
     newton_max_iters: int = 24
     newton_grad_tol: float = 1e-5  # scipy BFGS gtol default the reference relies on
     newton_max_backtracks: int = 12
-    newton_cg_iters: int = 6  # Steihaug CG steps (capped at K-1; 6 matches cg=12 bounds to 0.05% at K=100-200 and is +13% faster, measured r2)
-    newton_bf16_hessian: bool = True  # bf16 MXU matmul for the in-loop Hessian
+    newton_cg_iters: int = 6  # Steihaug CG steps (capped at K-1; 6 matches cg=12 bounds to 0.05% at K=100-200)
+    newton_bf16_hessian: bool = True  # bf16 operands for the in-loop Hessian product
     newton_fixed_iters: bool = False  # run exactly max_iters (fori_loop)
     # two-pass difficulty schedule (ops/estep.py::_two_pass_estep):
     # pass 1 caps every chunk at newton_pass1_iters Newton steps, pass 2
@@ -90,33 +95,16 @@ class STMConfig:
     # (costs one extra compile; irrelevant once fits exceed ~5 iters)
     newton_warmup_iters: int = 2
     # execution
-    batch_size: int = 256  # docs per E-step scan chunk (per device; smaller chunks reduce Newton convergence coupling — B=128-256 measured fastest at K=100)
-    use_pallas: bool = False  # round-1 whole-Newton-loop kernel (TPU only)
-    # reduced-scope Pallas stage kernels (ops/pallas_stages.py); each
-    # toggles independently so one Mosaic failure doesn't block the rest
-    pallas_fgh: bool = False
-    pallas_cg: bool = False
-    pallas_ls: bool = False
-    # one fused kernel per Newton iteration (f/g/H + CG + Armijo +
-    # update; beta_doc read from HBM once per iteration instead of
-    # twice); while_loop stays in XLA.  Supersedes the stage flags.
-    pallas_iter: bool = False
-    pallas_block: int = 8
-    # lax.map the pallas_cg call over sub-chunks of this many docs
-    # (0 = off): lets the E-step batch exceed the remote Mosaic
-    # compiler's input-size ceiling at K>=400 (ops/estep.py)
-    cg_chunk_docs: int = 0
+    batch_size: int = 256  # docs per E-step scan chunk (per device; smaller chunks reduce Newton convergence coupling)
     # bf16 beta_doc for the Newton search path (finalize stays f32)
     newton_bf16_beta: bool = False
     # nu inverse strategy: "blocked" (straight-line blocked Cholesky +
     # divide-and-conquer triangular inverse, exact to f32 rounding —
-    # ops/linalg.py::blocked_cholesky; +54% E-step at K=100 on v5e,
-    # benchmarks/results_nu_K100.json), "chol" (XLA Cholesky +
+    # ops/linalg.py::blocked_cholesky), "chol" (XLA Cholesky +
     # triangular solves), or "ns" (Newton-Schulz, ~1e-3 sigma_ss error)
     nu_method: str = "blocked"
     # blocked_cholesky block size (only read when nu_method="blocked");
-    # 0 = auto: 16 at K<=200, 32 above (+23.4% at K=400,
-    # benchmarks/results_k400_finalize.json)
+    # 0 = auto: 16 at K<=200, 32 above
     chol_block: int = 0
     # likelihood tempering of the per-doc eta search objective
     # (ops/estep.py::NewtonConfig.likelihood_temper): values < 1 damp
@@ -135,8 +123,7 @@ class STMConfig:
     # max, not the corpus max)
     sort_by_difficulty: bool = True
     # unroll factor for the E-step's over-chunks lax.scan: >1 lets XLA
-    # interleave consecutive chunks' small ops (the roofline analysis
-    # shows the E-step is op-granularity-bound, not wall-bound)
+    # interleave consecutive chunks' small ops
     scan_unroll: int = 1
 
     def __post_init__(self):
@@ -167,18 +154,19 @@ class STMConfig:
             raise ValueError("newton_warmup_iters must be >= 0")
         if not 0.0 < self.likelihood_temper <= 1.0:
             raise ValueError("likelihood_temper must be in (0, 1]")
-        if self.newton_pass1_iters and self.use_pallas:
-            raise ValueError(
-                "the two-pass schedule is incompatible with the whole-loop "
-                "Pallas kernel (use_pallas); the stage kernels are fine"
-            )
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "STMConfig":
-        return cls(**json.loads(s))
+        """Parse ``to_json`` output; the options of the removed E-step
+        kernels, which configs saved by older versions carry, are
+        dropped.  Any other unknown field raises ``TypeError``."""
+        kw = json.loads(s)
+        for name in _RETIRED_FIELDS:
+            kw.pop(name, None)
+        return cls(**kw)
 
     def replace(self, **kw) -> "STMConfig":
         return dataclasses.replace(self, **kw)

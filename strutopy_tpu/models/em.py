@@ -70,12 +70,6 @@ def _newton_cfg(cfg: STMConfig) -> NewtonConfig:
         cg_iters=cfg.newton_cg_iters,
         bf16_hessian=cfg.newton_bf16_hessian,
         fixed_iters=cfg.newton_fixed_iters,
-        pallas_fgh=cfg.pallas_fgh,
-        pallas_cg=cfg.pallas_cg,
-        pallas_ls=cfg.pallas_ls,
-        pallas_iter=cfg.pallas_iter,
-        pallas_block=cfg.pallas_block,
-        cg_chunk_docs=cfg.cg_chunk_docs,
         bf16_beta=cfg.newton_bf16_beta,
         nu_method=cfg.nu_method,
         chol_block=cfg.chol_block,
@@ -154,7 +148,6 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
             ok_b,
             cfg=ncfg,
             batch_size=B_b,
-            use_pallas=cfg.use_pallas,
             vocab_axis=vocab_axis,
             pass1_iters=cfg.newton_pass1_iters,
             straggler_frac=cfg.newton_straggler_frac,

@@ -15,17 +15,16 @@ statistics ``phi`` (stm.py:1103-1118), accumulating
 
     sigma_ss += nu        beta_ss[:, w_d] += phi_d      bound += bound_d
 
-TPU-native design (replacing the reference's serial python loop of
+Batched design (replacing the reference's serial python loop of
 per-doc ``scipy.optimize.minimize(BFGS)`` calls):
 
   * documents stream through a ``lax.scan`` in fixed-size chunks; each
     chunk runs an *explicitly batched* damped-Newton solver: ONE
     batch-level ``lax.while_loop`` whose body is straight-line batched
-    linear algebra — no nested loops, which the TPU compiler handles
-    poorly (a vmapped while-in-while variant took minutes to compile);
+    linear algebra (a vmapped while-in-while variant took minutes to
+    compile);
   * the Newton direction comes from Steihaug truncated CG, *unrolled*
-    (pure batched (B,K)·(B,K,K) matvecs on the MXU — measured ~6x
-    faster than batched Cholesky factorization at K=100, B=1024);
+    (pure batched (B,K)·(B,K,K) matvecs, no per-doc factorization);
   * the Armijo line search evaluates ALL candidate step sizes in one
     (B,T,K)x(B,K,L) contraction and selects the first acceptable one —
     a parallel sweep instead of a sequential backtracking loop;
@@ -41,12 +40,12 @@ callbacks, so the same function runs under ``shard_map`` with a final
 from __future__ import annotations
 
 import functools
-import logging
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
+from strutopy_tpu.ops import linalg
 from strutopy_tpu.ops.linalg import (
     blocked_cho_inverse,
     blocked_cholesky,
@@ -54,11 +53,9 @@ from strutopy_tpu.ops.linalg import (
     default_chol_block,
 )
 
-logger = logging.getLogger(__name__)
-
 
 def _batch_diag(H):
-    """Diagonal of a (B, K, K) stack without gather ops (Pallas-safe)."""
+    """Diagonal of a (B, K, K) stack as a masked reduction (no gather)."""
     K = H.shape[-1]
     eye = jnp.eye(K, dtype=H.dtype)
     return jnp.sum(H * eye[None], axis=2)
@@ -69,55 +66,25 @@ class NewtonConfig(NamedTuple):
     grad_tol: float = 1e-5
     max_backtracks: int = 12
     cg_iters: int = 6  # inner CG steps (capped at K-1 internally)
-    bf16_hessian: bool = True  # bf16 MXU matmuls for the *in-loop* Hessian
-    # Mosaic (Pallas TPU) cannot lower dot_general with batch dimensions;
-    # this flag swaps the three batched contractions for per-doc 2D dots
-    # in fori_loops / elementwise lane-reductions.  Same math, same
-    # results — only the lowering strategy differs.
-    mosaic_safe: bool = False
+    bf16_hessian: bool = True  # bf16 operands for the *in-loop* Hessian product
     # run exactly max_iters Newton steps in a fori_loop instead of the
-    # early-exit while_loop (simpler control flow for kernel compilers;
-    # converged lanes are frozen by the done mask either way)
+    # early-exit while_loop (converged lanes are frozen by the done
+    # mask either way)
     fixed_iters: bool = False
-    # reduced-scope Pallas stage kernels (ops/pallas_stages.py): each
-    # fuses one Newton stage, keeping the while_loop in XLA.  Verified
-    # to compile on the v5e Mosaic toolchain individually (the round-1
-    # whole-loop kernel did not).
-    pallas_fgh: bool = False  # fused f/g/H over the (B, K, L) block
-    pallas_cg: bool = False  # CG with VMEM-resident Hessian
-    pallas_ls: bool = False  # fused Armijo sweep objectives
-    # the WHOLE Newton iteration (f/g/H + CG + Armijo + update) as ONE
-    # kernel, sharing the beta_doc VMEM block between the objective
-    # pass and the T-candidate sweep (XLA can't fuse across the CG /
-    # step-selection in between); the while_loop stays in XLA.
-    # Supersedes the three stage flags when set.
-    pallas_iter: bool = False
-    pallas_block: int = 8  # docs per kernel program
-    # split the pallas_cg call into lax.map sub-chunks of this many
-    # docs (0 = off).  At K>=400 the remote Mosaic compiler 500s when
-    # the kernel's INPUT arrays exceed ~64 (K-1)^2 Hessians even though
-    # the per-block VMEM footprint is unchanged; chunking keeps the
-    # E-step batch large (better MXU utilization everywhere else)
-    # while each pallas_call sees a compilable slice.  Bit-identical:
-    # the kernel is per-doc-block math either way.
-    cg_chunk_docs: int = 0
     # store the Newton loop's beta_doc operand in bfloat16: halves the
-    # dominant in-loop HBM read ((B, K, L) per f/g/H call and per Armijo
-    # sweep).  Only the SEARCH PATH sees the rounded values; the
+    # dominant in-loop device-memory read ((B, K, L) per f/g/H call and
+    # per Armijo sweep).  Only the SEARCH PATH sees the rounded values; the
     # finalize pass (bound, phi, nu) always re-reads beta_doc in f32,
     # preserving the model-quantity precision split (CLAUDE.md).
     bf16_beta: bool = False
     # nu = H^{-1} strategy at the converged eta: "blocked" (straight-
-    # line blocked Cholesky + divide-and-conquer triangular inverse —
-    # exact to f32 rounding, +54% E-step at K=100 on v5e vs XLA's
-    # sequential-loop lowerings, results_nu_K100.json), "chol" (XLA
-    # Cholesky + triangular solve, reference semantics), or "ns"
-    # (Newton-Schulz: ~1e-3 relative sigma_ss error; log-det still
-    # from the Cholesky)
+    # line blocked Cholesky + divide-and-conquer triangular inverse,
+    # exact to f32 rounding), "chol" (XLA Cholesky + triangular solve,
+    # reference semantics), or "ns" (Newton-Schulz: ~1e-3 relative
+    # sigma_ss error; log-det still from the Cholesky)
     nu_method: str = "blocked"
     # blocked_cholesky block size for nu_method="blocked"; 0 = auto
-    # (ops/linalg.py::default_chol_block: 16 at K<=200, 32 above —
-    # +23.4% at K=400, results_k400_finalize.json)
+    # (ops/linalg.py::default_chol_block: 16 at K<=200, 32 above)
     chol_block: int = 0
     # likelihood tempering of the per-doc eta SEARCH objective
     # (VERDICT r4 #3): minimize quad + temper * (-loglik) instead of the
@@ -156,79 +123,20 @@ def _pad_eta(eta):
     return jnp.concatenate([eta, jnp.zeros((B, 1), eta.dtype)], axis=1)
 
 
-# Finalize-stage matmul precision for f32 MODEL quantities (the final
-# Hessian, the bound's loglik/quad terms, the NS inverse): TPU's
-# DEFAULT einsum precision truncates f32 inputs to bfloat16, which
-# would silently demote the "final Hessian f32" invariant (see
-# ops/linalg.py module comment — the same truncation NaN'd the blocked
-# Cholesky at N=1M).  HIGH = bf16x3 passes (~1e-5 relative, true f32
-# on CPU); HIGHEST measured +0.4-1% E-step cost for accuracy far below
-# fit noise (benchmarks/results_precision_ab.json).  Module constant so
-# precision A/Bs can patch it (read at trace time; pair any sweep with
-# jax.clear_caches()).
-_FINALIZE_PREC = jax.lax.Precision.HIGH
-
-
-def _bmm_outer(Bm, mosaic_safe: bool):
+def _bmm_outer(Bm):
     """(B, K, L) x (B, K, L) -> (B, K, K) batched B @ B^T.
 
     f32 operands (the finalize Hessian, ``bf16=False``) multiply at
-    ``_FINALIZE_PREC``; bf16 operands (the in-loop Hessian) keep the
-    single-pass default: that reduced precision is the documented
+    ``linalg.MODEL_PREC`` (true f32); bf16 operands (the in-loop
+    Hessian) keep the default: that reduced precision is the documented
     in-loop design.
     """
-    prec = _FINALIZE_PREC if Bm.dtype == jnp.float32 else None
-    if not mosaic_safe:
-        return jnp.einsum("bkl,bjl->bkj", Bm, Bm,
-                          preferred_element_type=jnp.float32, precision=prec)
-
-    # Mosaic supports neither batched dot_general nor dynamic_slice on
-    # values: unroll over the (static) block with 2D dots
-    B = Bm.shape[0]
-    return jnp.stack(
-        [
-            jax.lax.dot_general(
-                Bm[b], Bm[b],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=prec,
-            )
-            for b in range(B)
-        ]
-    )
+    prec = linalg.MODEL_PREC if Bm.dtype == jnp.float32 else None
+    return jnp.einsum("bkl,bjl->bkj", Bm, Bm,
+                      preferred_element_type=jnp.float32, precision=prec)
 
 
-def _bmm_ls(e, beta_doc, mosaic_safe: bool):
-    """(B, T, K) x (B, K, L) -> (B, T, L) line-search logits."""
-    if not mosaic_safe:
-        return jnp.einsum("btk,bkl->btl", e, beta_doc)
-
-    B = e.shape[0]
-    return jnp.stack(
-        [
-            jax.lax.dot_general(
-                e[b], beta_doc[b],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            for b in range(B)
-        ]
-    )
-
-
-def _bmv(Hm, p, mosaic_safe: bool):
-    """(B, K, K) x (B, K) -> (B, K) batched matvec (CG step)."""
-    if not mosaic_safe:
-        return jnp.einsum(
-            "bij,bj->bi", Hm, p.astype(Hm.dtype),
-            preferred_element_type=jnp.float32,
-        )
-    prod = Hm.astype(jnp.float32) * p[:, None, :].astype(jnp.float32)
-    return jnp.sum(prod, axis=2)
-
-
-def _f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool,
-                   mosaic_safe: bool = False):
+def _f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool):
     """Objective, gradient, Hessian for a chunk.
 
     eta/mu (B, K-1); beta_doc (B, K, L); counts (B, L); Nd (B,).
@@ -249,13 +157,14 @@ def _f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool,
     ll = jnp.sum(jnp.where(cmask, counts * (jnp.log(s_safe) + m), 0.0), axis=1)
     lse = (m + jnp.log(sum_e))[:, 0]
     diff = eta - mu  # (B, K-1)
-    sdiff = diff @ siginv  # (B, K-1); siginv symmetric
+    # the gradient and the Armijo objectives below decide where the
+    # search stops, so their f32 products run at linalg.MODEL_PREC
+    sdiff = jnp.einsum("bi,ij->bj", diff, siginv,
+                       precision=linalg.MODEL_PREC)  # siginv symmetric
     f = 0.5 * jnp.sum(diff * sdiff, axis=1) - ll + Nd * lse
 
     phi_hat = a / s_safe[:, None, :]  # (B, K, L)
     phi_hat = jnp.where(cmask[:, None, :], phi_hat, 0.0)
-    # q = einsum("bkl,bl->bk"): lane-reduction form is Mosaic-safe and
-    # fuses identically under XLA
     q = jnp.sum(phi_hat * counts[:, None, :], axis=2)  # (B, K)
     g_full = Nd[:, None] * theta - q
     g = sdiff + g_full[:, :-1]
@@ -266,7 +175,7 @@ def _f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool,
         Bm = Bmat.astype(jnp.bfloat16)
     else:
         Bm = Bmat
-    Hll = _bmm_outer(Bm, mosaic_safe)
+    Hll = _bmm_outer(Bm)
     Hll = Hll - (Nd[:, None, None] * theta[:, :, None]) * theta[:, None, :]
     dcorr = Nd[:, None] * theta - q  # (B, K)
     Hll = Hll + dcorr[:, :, None] * jnp.eye(K, dtype=Hll.dtype)[None]
@@ -274,14 +183,15 @@ def _f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool,
     return f, g, H, theta, phi_hat
 
 
-def _f_multi(eta, p, ts, beta_doc, counts, mu, siginv, Nd, mosaic_safe: bool = False):
+def _f_multi(eta, p, ts, beta_doc, counts, mu, siginv, Nd):
     """f(eta + t*p) for all T step sizes at once -> (B, T)."""
     cand = eta[:, None, :] + ts[None, :, None] * p[:, None, :]  # (B, T, K-1)
-    B, T, P = cand.shape
+    B, T, _ = cand.shape
     cand_full = jnp.concatenate([cand, jnp.zeros((B, T, 1), cand.dtype)], axis=2)
     m = jnp.max(cand_full, axis=2, keepdims=True)
     e = jnp.exp(cand_full - m)  # (B, T, K)
-    s = _bmm_ls(e, beta_doc, mosaic_safe)
+    s = jnp.einsum("btk,bkl->btl", e, beta_doc,
+                   precision=linalg.MODEL_PREC)  # (B, T, L)
     s = jnp.maximum(s, jnp.asarray(1e-35, s.dtype))
     cmask = counts > 0
     ll = jnp.sum(
@@ -290,21 +200,20 @@ def _f_multi(eta, p, ts, beta_doc, counts, mu, siginv, Nd, mosaic_safe: bool = F
     )
     lse = (m[:, :, 0] + jnp.log(jnp.sum(e, axis=2)))
     diff = cand - mu[:, None, :]
-    # (B*T, P) @ (P, P) 2D matmul, then elementwise reduce (Mosaic-safe)
-    dsig = (diff.reshape(B * T, P) @ siginv).reshape(B, T, P)
+    dsig = jnp.einsum("btp,pq->btq", diff, siginv, precision=linalg.MODEL_PREC)
     quad = 0.5 * jnp.sum(diff * dsig, axis=2)
     return quad - ll + Nd[:, None] * lse
 
 
-def _cg_batched(H, g, iters: int, bf16: bool = True, mosaic_safe: bool = False):
+def _cg_batched(H, g, iters: int, bf16: bool = True):
     """Steihaug truncated CG for the whole chunk, fully unrolled.
 
-    Pure batched matvecs — no lax loop, so the TPU compiler sees
+    Pure batched matvecs — no lax loop, so the compiler sees
     straight-line code.  Freezes each lane at its first
     negative-curvature direction (descent guaranteed); Jacobi
     preconditioned with the abs-diagonal (safe for indefinite H).
 
-    The repeated H reads dominate HBM traffic (B*K^2*4 bytes per CG
+    The repeated H reads dominate memory traffic (B*K^2*4 bytes per CG
     step); with ``bf16`` the matvec operand is bfloat16 (float32
     accumulate + float32 CG recurrences), halving that traffic — the
     direction is guarded by the Armijo sweep, so reduced matvec
@@ -319,7 +228,8 @@ def _cg_batched(H, g, iters: int, bf16: bool = True, mosaic_safe: bool = False):
     x = jnp.zeros_like(g)
     active = jnp.ones(g.shape[0], bool)
     for _ in range(iters):
-        Ap = _bmv(Hm, p, mosaic_safe)
+        Ap = jnp.einsum("bij,bj->bi", Hm, p.astype(Hm.dtype),
+                        preferred_element_type=jnp.float32)
         pAp = jnp.sum(p * Ap, axis=1)
         active = jnp.logical_and(active, pAp > 1e-30)
         alpha = rz / jnp.where(pAp > 1e-30, pAp, 1.0)
@@ -354,13 +264,8 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
         counts = counts * jnp.asarray(cfg.likelihood_temper, counts.dtype)
     Nd = jnp.sum(counts, axis=1)
     cg_iters = min(cfg.cg_iters, K - 1)
-    # step ladder 1, 1/2, 1/4, ... built via 2D *integer* iota
-    # (Pallas-safe: TPU kernels reject 1D iota, float iota, and
-    # captured host constants alike)
-    ts = jnp.exp2(
-        -jax.lax.broadcasted_iota(jnp.int32, (cfg.max_backtracks, 1), 0)
-        .astype(eta0.dtype)
-    )[:, 0]
+    # step ladder 1, 1/2, 1/4, ...
+    ts = jnp.exp2(-jnp.arange(cfg.max_backtracks, dtype=eta0.dtype))
 
     def cond(st):
         _eta, it, done, _n = st
@@ -368,82 +273,21 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
 
     def body(st):
         eta, it, done, n_iters = st
-        if cfg.pallas_iter:
-            from strutopy_tpu.ops.pallas_stages import pallas_iter_impl
-
-            eta, done, advance = pallas_iter_impl(
-                eta, beta_doc, counts, mu, siginv, ts, done,
-                grad_tol=cfg.grad_tol, cg_iters=cg_iters,
-                bf16=cfg.bf16_hessian, block_docs=cfg.pallas_block,
-            )
-            return (eta, it + 1, done, n_iters + advance.astype(jnp.int32))
-        if cfg.pallas_fgh:
-            from strutopy_tpu.ops.pallas_stages import pallas_fgh_impl
-
-            f, g, H = pallas_fgh_impl(
-                eta, beta_doc, counts, mu, siginv,
-                bf16=cfg.bf16_hessian, block_docs=cfg.pallas_block,
-            )
-        else:
-            f, g, H, _, _ = _f_g_H_batched(
-                eta, beta_doc, counts, mu, siginv, Nd, cfg.bf16_hessian,
-                cfg.mosaic_safe,
-            )
+        f, g, H, _, _ = _f_g_H_batched(
+            eta, beta_doc, counts, mu, siginv, Nd, cfg.bf16_hessian)
         conv = jnp.max(jnp.abs(g), axis=1) <= cfg.grad_tol
 
-        if cfg.pallas_cg:
-            from strutopy_tpu.ops.pallas_stages import pallas_cg_impl
-
-            ck = cfg.cg_chunk_docs
-            if ck and H.shape[0] > ck and H.shape[0] % ck != 0:
-                # trace-time (shapes are static): a silent whole-batch
-                # fallback would re-trigger the remote Mosaic compile
-                # failure cg_chunk_docs exists to avoid (ADVICE r4)
-                logger.warning(
-                    "cg_chunk_docs=%d does not divide the E-step batch "
-                    "%d; falling back to one whole-batch pallas_cg call "
-                    "(pick a batch_size that is a multiple of "
-                    "cg_chunk_docs)", ck, H.shape[0],
-                )
-            if ck and H.shape[0] > ck and H.shape[0] % ck == 0:
-                nc, Km1 = H.shape[0] // ck, g.shape[1]
-                p = jax.lax.map(
-                    lambda hg: pallas_cg_impl(
-                        hg[0], hg[1], iters=cg_iters,
-                        bf16=cfg.bf16_hessian, block_docs=cfg.pallas_block,
-                    ),
-                    (H.reshape(nc, ck, Km1, Km1), g.reshape(nc, ck, Km1)),
-                ).reshape(H.shape[0], Km1)
-            else:
-                p = pallas_cg_impl(
-                    H, g, iters=cg_iters, bf16=cfg.bf16_hessian,
-                    block_docs=cfg.pallas_block,
-                )
-        else:
-            p = _cg_batched(
-                H, g, cg_iters, bf16=cfg.bf16_hessian, mosaic_safe=cfg.mosaic_safe
-            )
+        p = _cg_batched(H, g, cg_iters, bf16=cfg.bf16_hessian)
         gTp = jnp.sum(g * p, axis=1)
         bad = gTp >= 0
         p = jnp.where(bad[:, None], -g, p)
         gTp = jnp.where(bad, -jnp.sum(g * g, axis=1), gTp)
 
         # parallel Armijo sweep: first (largest) acceptable step size
-        if cfg.pallas_ls:
-            from strutopy_tpu.ops.pallas_stages import pallas_linesearch_impl
-
-            fs = pallas_linesearch_impl(
-                eta, p, ts, beta_doc, counts, mu, siginv,
-                block_docs=cfg.pallas_block,
-            )
-        else:
-            fs = _f_multi(
-                eta, p, ts, beta_doc, counts, mu, siginv, Nd, cfg.mosaic_safe
-            )  # (B, T)
+        fs = _f_multi(eta, p, ts, beta_doc, counts, mu, siginv, Nd)  # (B, T)
         ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
         any_ok = jnp.any(ok, axis=1)
-        # ts is descending, so the first acceptable step is the largest:
-        # gather-free select (Pallas-safe)
+        # ts is descending, so the first acceptable step is the largest
         t = jnp.max(jnp.where(ok, ts[None, :], 0.0), axis=1)
 
         advance = jnp.logical_and(~done, ~conv)
@@ -459,34 +303,6 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
         jnp.zeros(B, bool) if done0 is None else done0,
         jnp.zeros(B, jnp.int32),
     )
-    if cfg.mosaic_safe:
-        # Mosaic (round-3 probe, results_pallas_probe.json) fails to
-        # legalize scf.yield of 1-D i1/i32 VECTOR loop carries (their
-        # replicated-pad vpad layouts); scalars and f32 vectors are
-        # fine.  Carry f32 surrogates for done/n_iters across the
-        # while_loop and convert at the region boundary — the body's
-        # internal bool/int logic is untouched.
-        dt = eta0.dtype
-
-        def cond_f(st):
-            _eta, it, done_f, _n = st
-            return jnp.logical_and(it < cfg.max_iters, jnp.min(done_f) < 0.5)
-
-        def body_f(st):
-            eta, it, done_f, n_f = st
-            eta, it2, done, n = body(
-                (eta, it, done_f > 0.5, n_f.astype(jnp.int32))
-            )
-            return (eta, it2, done.astype(dt), n.astype(dt))
-
-        st0f = (st0[0], st0[1], st0[2].astype(dt), st0[3].astype(dt))
-        if cfg.fixed_iters:
-            eta, _, done_f, n_f = jax.lax.fori_loop(
-                0, cfg.max_iters, lambda _, st: body_f(st), st0f
-            )
-        else:
-            eta, _, done_f, n_f = jax.lax.while_loop(cond_f, body_f, st0f)
-        return eta, n_f.astype(jnp.int32), done_f > 0.5
     if cfg.fixed_iters:
         eta, _, done, n_iters = jax.lax.fori_loop(
             0, cfg.max_iters, lambda _, st: body(st), st0
@@ -553,7 +369,7 @@ def _ns_inverse(H, iters: int = 18):
     """Batched symmetric-PD inverse by Newton-Schulz iteration.
 
     X_{k+1} = X_k (2I - H X_k) from X_0 = H / ||H||_1^2 — 2*iters
-    batched (B, K, K) matmuls, all MXU, no triangular solves.
+    batched (B, K, K) matmuls, no triangular solves.
     Quadratic convergence once ||I - H X|| < 1; 18 iterations cover
     cond(H) up to ~1e4 (the converged per-doc Hessians here are
     well-conditioned: Nd-scaled likelihood curvature + siginv).
@@ -561,7 +377,7 @@ def _ns_inverse(H, iters: int = 18):
     n1 = jnp.max(jnp.sum(jnp.abs(H), axis=2), axis=1)
     X = H / (n1[:, None, None] ** 2)
     I2 = 2.0 * jnp.eye(H.shape[-1], dtype=H.dtype)[None]
-    hi = _FINALIZE_PREC  # nu is a model quantity: f32-exact
+    hi = linalg.MODEL_PREC  # nu is a model quantity: f32-exact
     for _ in range(iters):
         HX = jnp.einsum("bij,bjk->bik", H, X,
                         preferred_element_type=jnp.float32, precision=hi)
@@ -593,7 +409,8 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
             # raw H: matches the chol path's semantics and guarantees
             # NS convergence
             H_pd = jnp.einsum("bij,bkj->bik", L, L,
-                              preferred_element_type=jnp.float32)
+                              preferred_element_type=jnp.float32,
+                              precision=linalg.MODEL_PREC)
             nu = _ns_inverse(H_pd)
         else:
             nu = jax.vmap(cho_inverse)(L)
@@ -602,9 +419,9 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
     eta_full = _pad_eta(eta)
     m = jnp.max(eta_full, axis=1, keepdims=True)
     e = jnp.exp(eta_full - m)
-    # bound terms are model quantities: f32-exact products (TPU DEFAULT
-    # would truncate the operands to bf16 — see _bmm_outer docstring)
-    hi = _FINALIZE_PREC
+    # bound terms are model quantities: f32-exact products (the default
+    # precision may round f32 operands to TF32 — see ops/linalg.py)
+    hi = linalg.MODEL_PREC
     t_l = jnp.einsum("bk,bkl->bl", theta * e, beta_doc, precision=hi)
     t_l = jnp.maximum(t_l, jnp.asarray(1e-35, eta.dtype))
     cmask = counts > 0
@@ -861,7 +678,7 @@ def _two_pass_fused_estep(
                 pass-1 eta.
 
     vs the unfused schedule this removes pass 3's full (B, K, L)
-    beta_doc re-gather — the third full HBM sweep of the E-step — at
+    beta_doc re-gather — the third full memory sweep of the E-step — at
     the cost of re-finalizing the straggler fraction.  Sufficient
     statistics accumulate in a different f32 summation order (the same
     acceptance as two-pass vs single-pass).  The ``lax.cond`` is
@@ -994,7 +811,7 @@ def _two_pass_fused_estep(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "cfg", "batch_size", "use_pallas", "pallas_block", "vocab_axis",
+        "cfg", "batch_size", "vocab_axis",
         "pass1_iters", "straggler_frac", "scan_unroll", "fused_finalize",
     ),
 )
@@ -1010,11 +827,6 @@ def run_estep(
     doc_ok,
     cfg: NewtonConfig = NewtonConfig(),
     batch_size: int = 1024,
-    use_pallas: bool = False,
-    # None -> cfg.pallas_block, so STMConfig.pallas_block reaches the
-    # whole-loop kernel through local_estep_stats (which builds cfg but
-    # does not pass this parameter); an explicit int still overrides
-    pallas_block: int | None = None,
     vocab_axis=None,
     pass1_iters: int = 0,
     straggler_frac: float = 0.3,
@@ -1036,8 +848,7 @@ def run_estep(
       batch_size: docs per scan chunk; N must be a multiple
         (callers pad with dummy docs).
       pass1_iters: >0 enables the two-pass difficulty schedule
-        (:func:`_two_pass_estep`); incompatible with ``use_pallas``
-        (the whole-loop kernel owns its own iteration control).
+        (:func:`_two_pass_estep`).
       fused_finalize: with the two-pass schedule, fuse the finalize
         into passes 1 and 2 (:func:`_two_pass_fused_estep`), removing
         pass 3's full beta_doc re-gather.  No-op when pass1_iters is 0
@@ -1048,13 +859,6 @@ def run_estep(
     B = min(batch_size, N)
     if N % B != 0:
         raise ValueError(f"N={N} must be a multiple of batch_size={B}; pad the corpus")
-    if pass1_iters and use_pallas:
-        # mirror STMConfig.__post_init__: direct callers must not get a
-        # silent single-pass fallback (ADVICE r2)
-        raise ValueError(
-            "pass1_iters (two-pass schedule) is incompatible with "
-            "use_pallas (the whole-loop kernel owns its iteration control)"
-        )
     if pass1_iters:
         impl = (
             _two_pass_fused_estep
@@ -1087,24 +891,8 @@ def run_estep(
         doc_w = ok.astype(beta.dtype)
         beta_doc = _gather_beta(beta, w, asp, vocab_axis)
         Nd = jnp.sum(c, axis=1)
-        if use_pallas:
-            from strutopy_tpu.ops.pallas_estep import pallas_newton_impl
-
-            # block must divide the chunk size (bucket batches are
-            # rounded to multiples of 8, not necessarily of the block)
-            pb = min(pallas_block if pallas_block is not None
-                     else cfg.pallas_block, B)
-            while B % pb:
-                pb //= 2
-            eta, iters = pallas_newton_impl(
-                beta_doc, c, mu_c, eta_c, siginv, cfg=cfg,
-                block_docs=max(pb, 1),
-            )
-        else:
-            bd_loop = (
-                beta_doc.astype(jnp.bfloat16) if cfg.bf16_beta else beta_doc
-            )
-            eta, iters, _ = _batched_newton(bd_loop, c, mu_c, eta_c, siginv, cfg)
+        bd_loop = beta_doc.astype(jnp.bfloat16) if cfg.bf16_beta else beta_doc
+        eta, iters, _ = _batched_newton(bd_loop, c, mu_c, eta_c, siginv, cfg)
         theta, nu, bound_d, phi = _finalize_chunk(
             eta, beta_doc, c, mu_c, doc_w, siginv, sigmaentropy, Nd,
             nu_method=cfg.nu_method, chol_block=cfg.chol_block,

@@ -21,26 +21,33 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-# All products in the blocked factorization/inverse path run at
-# Precision.HIGH (bf16x3 passes on TPU; true f32 on CPU): on TPU the
-# DEFAULT einsum precision truncates f32 inputs to bfloat16, and the
-# resulting ~eps_bf16 * ||H|| perturbation of the Schur complements
-# (~0.1 at the N=1M corpus scale) exceeds the smallest eigenvalues the
-# PD-repair ladder produces (~0.01), driving pivots negative -> NaN
-# factors on matrices XLA's native Cholesky handles fine.  Root-caused
-# from the five dumped N=1M Hessians
-# (benchmarks/results_nan_bisect_hdump.json, tests/test_linalg_precision.py).
+# Matmul precision for the f32 products the fit's accuracy rests on:
+# every product in this module (the blocked factorization/inverse, and
+# cho_inverse: sigma^{-1} and the "chol" path's nu), the finalize-stage
+# MODEL quantities of ops/estep.py (the final Hessian,
+# the bound's loglik/quad terms, the Newton-Schulz inverse), and the
+# Newton search's gradient and Armijo objectives, which decide where
+# the search stops.  On the GPU, DEFAULT and HIGH both let f32 products
+# run as TF32, which keeps a 10-bit mantissa (~5e-4 relative); only
+# HIGHEST is true f32.  On CPU all three are f32.
 #
-# Why HIGH and not HIGHEST: measured on the dumped Hessians ON TPU,
-# DEFAULT NaNs, HIGH is finite with max err 6.7e-4 vs the XLA factor
-# (20x margin to the 0.014 repaired-eig floor), HIGHEST is finite at
-# 1.4e-5; and on the headline E-step HIGH is throughput-free while
-# HIGHEST costs 2.2-2.6% (benchmarks/results_precision_ab.json).  The
-# scale-aware terminal rung in ops/estep.py::_chol_pd_batched keeps
-# the ladder finite even for matrices with thinner margins than the
-# fixture's.  On CPU, HIGH executes as true f32, so the "exact to f32
-# rounding" parity tests (tests/test_blocked_linalg.py) are unaffected.
-_PREC = jax.lax.Precision.HIGH
+# Why HIGHEST: the PD-repair ladder produces Hessians whose smallest
+# eigenvalues (0.014-0.050) sit far below ||H|| (~20-54).  On the five
+# dumped barely-PD Hessians (tests/fixtures/nan_bisect_H.npz, after the
+# make_pd repair), emulated TF32 operand rounding gives blocked_cholesky
+# factor errors of 4.7e-4 to 2.6e-2 against float64 — the size of those
+# eigenvalues, so log-det and nu would carry TF32 error — against
+# <=1e-5 in true f32 (tests/test_linalg_precision.py).  An operand
+# rounding of ~eps * ||H|| above the smallest eigenvalue drives pivots
+# negative and the factor to NaN (the bf16 case that test also pins).
+# In the search, TF32 Armijo objectives stop the line search on
+# rounding noise before the 1e-5 gradient is met (oracle eta error
+# 7e-2 instead of 2e-2 at K=100 on an H100).  The in-loop Newton
+# Hessian (bf16 operands by design) is not affected.
+#
+# Read at trace time, so an A/B can patch it (pair a patch with
+# jax.clear_caches()); ops/estep.py reads it through this module.
+MODEL_PREC = jax.lax.Precision.HIGHEST
 
 
 def make_pd(M: jax.Array) -> jax.Array:
@@ -83,7 +90,7 @@ def cho_inverse(L: jax.Array) -> jax.Array:
     """
     eye = jnp.eye(L.shape[-1], dtype=L.dtype)
     Linv = solve_triangular(L, eye, lower=True)
-    return Linv.T @ Linv
+    return jnp.matmul(Linv.T, Linv, precision=MODEL_PREC)
 
 
 def _small_chol(A: jax.Array) -> jax.Array:
@@ -100,7 +107,7 @@ def _small_chol(A: jax.Array) -> jax.Array:
         if i:
             corr = jnp.einsum(
                 "brk,bk->br", L[:, i:, :i], L[:, i, :i],
-                preferred_element_type=A.dtype, precision=_PREC,
+                preferred_element_type=A.dtype, precision=MODEL_PREC,
             )
         else:
             corr = jnp.zeros_like(A[:, i:, i])
@@ -123,7 +130,7 @@ def _small_tri_inv(L: jax.Array) -> jax.Array:
             prev = jnp.stack(rows, axis=1)  # (B, i, m)
             corr = jnp.einsum(
                 "bk,bkm->bm", L[:, i, :i], prev,
-                preferred_element_type=L.dtype, precision=_PREC,
+                preferred_element_type=L.dtype, precision=MODEL_PREC,
             )
         else:
             corr = jnp.zeros_like(e)
@@ -136,9 +143,8 @@ def tri_lower_inverse(L: jax.Array, leaf: int = 8) -> jax.Array:
 
     inv([[A, 0], [C, D]]) = [[A^-1, 0], [-D^-1 C A^-1, D^-1]]: the two
     half-size inversions are independent, so the sequential depth is
-    log2(n/leaf) with all O(n^3) work in batched einsums (MXU) —
-    versus the n-step sequential substitution XLA's triangular solve
-    lowers to on TPU.
+    log2(n/leaf) with all O(n^3) work in batched einsums — versus the
+    n-step sequential substitution of a triangular solve.
     """
     n = L.shape[-1]
     if n <= leaf:
@@ -147,9 +153,9 @@ def tri_lower_inverse(L: jax.Array, leaf: int = 8) -> jax.Array:
     Ai = tri_lower_inverse(L[:, :h, :h], leaf)
     Di = tri_lower_inverse(L[:, h:, h:], leaf)
     CA = jnp.einsum("bij,bjk->bik", L[:, h:, :h], Ai,
-                    preferred_element_type=L.dtype, precision=_PREC)
+                    preferred_element_type=L.dtype, precision=MODEL_PREC)
     X = -jnp.einsum("bij,bjk->bik", Di, CA,
-                    preferred_element_type=L.dtype, precision=_PREC)
+                    preferred_element_type=L.dtype, precision=MODEL_PREC)
     B = L.shape[0]
     top = jnp.concatenate(
         [Ai, jnp.zeros((B, h, n - h), L.dtype)], axis=2)
@@ -159,14 +165,9 @@ def tri_lower_inverse(L: jax.Array, leaf: int = 8) -> jax.Array:
 def default_chol_block(p: int) -> int:
     """K-scaled default panel size for :func:`blocked_cholesky`.
 
-    16 vs 32 measured within noise in the E-step at K<=200
-    (round-2 sweep); at K=400 the block-16 ladder is 25 sequential
-    steps whose updates under-fill the MXU and block 32 recovers
-    +23.4% end-to-end (benchmarks/results_k400_finalize.json —
-    block 64 adds only +0.7% more).  All block sizes produce the
-    bit-identical factorization up to f32 rounding of the same
-    straight-line schedule per size; the bound matched exactly in
-    the K=400 sweep.
+    Larger K takes a larger panel so that the number of sequential
+    block steps stays near P/16 <= 25.  All block sizes give the same
+    factorization up to f32 rounding.
     """
     return 16 if p <= 200 else 32
 
@@ -174,13 +175,10 @@ def default_chol_block(p: int) -> int:
 def blocked_cholesky(H: jax.Array, block: int = 16) -> jax.Array:
     """Batched lower Cholesky of (B, P, P) SPD matrices, straight-line.
 
-    XLA's native Cholesky lowers to a P-step sequential While loop with
-    tiny per-step work; on TPU the finalize-stage (B, K-1, K-1)
-    factorization is latency-bound there (44 of 173 ms at K=100 —
-    benchmarks/results_ablate_K100_V10000.json).  This right-looking
-    blocked version does P/block sequential block steps, each one
-    unrolled (B, block, block) factorization + a log-depth triangular
-    inverse + two batched einsums (MXU work).
+    A right-looking blocked factorization: P/block sequential block
+    steps, each one unrolled (B, block, block) factorization + a
+    log-depth triangular inverse + two batched einsums.  The
+    alternative is XLA's Cholesky (``nu_method="chol"``).
 
     P is padded up to a multiple of ``block`` with an identity tail
     (factor and inverse of the pad are identity; the result is sliced
@@ -205,10 +203,10 @@ def blocked_cholesky(H: jax.Array, block: int = 16) -> jax.Array:
         if r:
             Wjj = tri_lower_inverse(Ljj, leaf=8)
             panel = jnp.einsum("brk,bik->bri", T[:, block:, :block], Wjj,
-                               preferred_element_type=H.dtype, precision=_PREC)
+                               preferred_element_type=H.dtype, precision=MODEL_PREC)
             T = T[:, block:, block:] - jnp.einsum(
                 "bri,bsi->brs", panel, panel,
-                preferred_element_type=H.dtype, precision=_PREC)
+                preferred_element_type=H.dtype, precision=MODEL_PREC)
             colj = jnp.concatenate([Ljj, panel], axis=1)  # (B, block+r, block)
         else:
             colj = Ljj
@@ -223,7 +221,8 @@ def blocked_cho_inverse(L: jax.Array, leaf: int = 8) -> jax.Array:
     :func:`tri_lower_inverse` — replaces the per-doc triangular solves
     of :func:`cho_inverse` with log-depth batched einsums."""
     W = tri_lower_inverse(L, leaf=leaf)
-    return jnp.einsum("bki,bkj->bij", W, W, preferred_element_type=L.dtype, precision=_PREC)
+    return jnp.einsum("bki,bkj->bij", W, W, preferred_element_type=L.dtype,
+                      precision=MODEL_PREC)
 
 
 def precompute_sigma(sigma: jax.Array, jitter: float = 1e-5):

@@ -7,7 +7,7 @@ Reference semantics (src/modules/stm.py:622-853):
   * update_beta  — row normalization (LDA-style) or the topical-content
     model: V independent Poisson regressions (mnreg, stm.py:749-853).
 
-TPU-native design: every update is expressed in terms of small, dense
+Device design: every update is expressed in terms of small, dense
 *moment* statistics (D^T eta, D^T D, eta^T eta, sum eta, beta_ss,
 sigma_ss) that are psummed over the document mesh axis, so the M-step
 itself runs replicated as a handful of (K|P)-sized linear-algebra ops:
@@ -378,13 +378,12 @@ def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
     One word's sklearn PoissonRegressor objective (fit_intercept=False):
       (1/n) sum_r [exp(z_r) - y_r z_r] + (alpha/2)||w||^2,
       z = m_v + offset + X w.
-    All Vc words of the chunk solve together as batched MXU work:
+    All Vc words of the chunk solve together as batched matrix work:
       * gradient: one (P, R) @ (R, Vc) matmul,
       * Hessians: one einsum -> (Vc, P, P),
       * solves: blocked Cholesky + divide-and-conquer triangular
-        inverse (ops/linalg.py) — straight-line batched einsums instead
-        of the P-step sequential While loops XLA lowers LU/Cholesky to
-        on TPU (the same fix as the E-step finalize, RESULTS.md),
+        inverse (ops/linalg.py) — straight-line batched einsums, as in
+        the E-step finalize,
       * line search: 6 halving steps evaluated for every word at once.
     The while_loop exits when every word's gradient max-norm is below
     ``tol`` (the reference fits each word to sklearn tol=1e-5,
@@ -495,17 +494,17 @@ def _poisson_newton_word(y, m_v, Xd, offset, alpha, n, iters,
 
 
 def _kappa_vchunk(V: int, P: int, budget_floats: int = 16_000_000) -> int:
-    """Words per scan chunk.  Two constraints, both measured at the
-    P=302 stress shape (benchmarks/results_kappa_ab.json, v5e):
+    """Words per scan chunk.  Two constraints at the P=302 stress shape:
 
-    * the (Vc, P, P) Hessian workspace must stay VMEM/HBM-friendly;
-    * SMALLER chunks win outright under the frequency-sorted layout
-      (each chunk's while_loop exits at its own worst word): 128 beats
-      256 by ~31% warm and ~36% cold, while 1024/2048 are ~2x slower.
-      64 collapses warm (+187%) — scan overhead takes over.
+    * the (Vc, P, P) Hessian workspace must stay a bounded slice of
+      device memory;
+    * smaller chunks finish sooner under the frequency-sorted layout
+      (each chunk's while_loop exits at its own worst word), until scan
+      overhead takes over.
 
-    The 16M-float budget maps P=302 to the measured winner (128) and
-    leaves small-P configs (which bind on min(V, .) anyway) unchanged.
+    The 16M-float budget maps P=302 to 128 words and leaves small-P
+    configs (which bind on min(V, .) anyway) unchanged.  Chunk sizes
+    were tuned on other hardware; not measured on the GPU.
     """
     c = max(128, budget_floats // max(P * P, 1))
     c = 1 << (c.bit_length() - 1)  # round down to a power of two

@@ -3,7 +3,7 @@
 The reference's only parallelism is joblib process fan-out of
 *independent* fits (src/05_train.py:177-179).  Here a single fit scales
 across chips: documents shard over the ``docs`` mesh axis and the
-E-step sufficient statistics reduce with ``psum`` over ICI/DCN
+E-step sufficient statistics reduce with ``psum`` across devices
 (SURVEY.md §2.5).
 """
 
@@ -52,9 +52,10 @@ def make_mesh_2d(
     Documents shard over the first axis as in :func:`make_mesh`; the
     ``beta``/``beta_ss`` (K, V) arrays additionally shard their vocab
     dimension over the second axis, dropping per-chip K*V memory by
-    ``n_vocab_shards``.  Lay the doc axis outermost so the per-chunk
-    beta_doc psum (the only vocab collective on the hot path) rides the
-    fastest ICI ring.
+    ``n_vocab_shards``.  The GPUs of one host reach each other at the
+    same rate, so the split follows the algorithm alone: vocab shards
+    cut per-device beta memory at the cost of one beta_doc psum per
+    E-step chunk (the only vocab collective on the hot path).
     """
     if devices is None:
         devices = jax.devices()

@@ -1,12 +1,12 @@
 """Document-sharded EM under ``shard_map`` + ``psum``.
 
-The TPU-native replacement for the reference's serial E-step loop
+The device replacement for the reference's serial E-step loop
 (src/modules/stm.py:519) and its joblib/filesystem "backend"
 (src/05_train.py:130-179): documents shard over the ``docs`` mesh axis,
 each device runs the batched Newton E-step on its shard, and the
 sufficient statistics — ``beta_ss (K,V)``, ``sigma_ss ((K-1)^2)``, the
-scalar bound and the eta regression moments — reduce with ``psum`` over
-ICI.  The M-step then runs replicated on every device (it is tiny), and
+scalar bound and the eta regression moments — reduce with ``psum``
+across devices.  The M-step then runs replicated on every device (it is tiny), and
 the per-document state (eta, theta, mu) never leaves its shard.
 
 Determinism: a psum of per-shard partial sums reorders float additions

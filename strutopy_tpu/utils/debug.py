@@ -3,7 +3,7 @@
 The reference scatters runtime asserts through the hot path
 (non-negativity of beta and phi stm.py:534,1117; Q row sums :152-154;
 probability checks :294-295; PD eigenvalue checks :1017-1021) — in a
-jitted TPU program those become host-side validations of the E-step
+jitted device program those become host-side validations of the E-step
 outputs, run per EM iteration when ``STMConfig.debug_checks`` is on
 (SURVEY.md §5 "keep these as debug-mode assertions").
 """

@@ -1,18 +1,13 @@
 """Float64 NumPy/SciPy oracle implementation of the STM EM step.
 
-Serves two purposes:
-  1. correctness oracle for tests (same math contract as the reference
-     src/modules/stm.py, with its two numerical bugs fixed: the
-     gradient's missing e^eta scaling (stm.py:946-958) and the
-     elementwise-product "inverse" of sigma (stm.py:501) — see
-     PARITY_NOTES.md);
-  2. the measured CPU baseline for bench.py: this is the
-     reference-equivalent per-document scipy BFGS E-step whose
-     docs/sec the TPU E-step is compared against (BASELINE.md).
+The correctness oracle for the tests and for chip_smoke.py's parity
+phase: the same math contract as the reference src/modules/stm.py, with
+its two numerical bugs fixed (the gradient's missing e^eta scaling,
+stm.py:946-958, and the elementwise-product "inverse" of sigma,
+stm.py:501 — see PARITY_NOTES.md).
 
 Intentionally written the way the reference is architected — a serial
-python loop over documents calling scipy.optimize.minimize — so the
-baseline measurement is honest.
+python loop over documents calling scipy.optimize.minimize.
 """
 
 from __future__ import annotations
@@ -232,7 +227,7 @@ def m_step_content(beta_ss, sigma_ss, eta, wcounts, kappa_design, N,
         # weighted fit of y/exp(o) with weights exp(o)
         w = np.exp(m[i] + offset)
         y = counts[:, i] / w
-        # sklearn normalizes the weighted deviance by sum(w), our TPU
+        # sklearn normalizes the weighted deviance by sum(w), our device
         # objective by n rows: rescale the penalty to match
         n_rows = counts.shape[0]
         clf = sklearn.linear_model.PoissonRegressor(

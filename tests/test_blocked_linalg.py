@@ -133,8 +133,7 @@ def test_blocked_cholesky_edge_sizes(P):
 
 
 def test_default_chol_block_k_scaled():
-    """0 = auto resolves 16 at K<=200 and 32 above (the K=400 sweep's
-    +23.4%, benchmarks/results_k400_finalize.json), and the block size
+    """0 = auto resolves 16 at K<=200 and 32 above, and the block size
     never changes the factorization beyond f32 rounding."""
     from strutopy_tpu.ops.linalg import default_chol_block
 

@@ -3,7 +3,7 @@
 The oracle re-derives the reference's objective/Hessian/bound/phi
 contract (reference src/modules/stm.py:920-944, :986-1026, :1068-1118)
 in float64 — with the gradient's missing e^eta scaling fixed (see
-PARITY_NOTES.md) — and checks the batched TPU-native Newton solver
+PARITY_NOTES.md) — and checks the batched Newton solver
 reaches the same optimum as scipy's line-searched BFGS.
 """
 
@@ -184,7 +184,7 @@ def test_dummy_doc_contributes_zero():
 
 
 def test_ns_inverse_matches_cholesky_inverse():
-    """nu_method="ns" (Newton-Schulz, MXU-only) must reproduce the
+    """nu_method="ns" (Newton-Schulz, matmuls only) must reproduce the
     Cholesky inverse of the repaired Hessian to ~1e-4."""
     import jax
     import jax.numpy as jnp

@@ -99,7 +99,7 @@ def test_toy_pipeline_heldout_negative(toy_fit):
 
 
 def test_bound_matches_float64_oracle(toy_fit, toy_corpus):
-    """The float32 TPU-native EM must reproduce the float64 NumPy/SciPy
+    """The float32 batched EM must reproduce the float64 NumPy/SciPy
     oracle's ELBO trajectory (same math, serial scipy-BFGS E-step) —
     the strongest end-to-end parity check we have.  (The Laplace-
     approximated bound is NOT strictly monotone — both implementations

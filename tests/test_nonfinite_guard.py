@@ -1,10 +1,9 @@
 """Always-on non-finite-bound sanitizer (VERDICT r4 #6).
 
-The N=1M streamed spectral fits reported ``bound=nan`` on TPU while
+The N=1M streamed spectral fits once reported ``bound=nan`` while
 theta/beta/heldout stayed finite — and the EM loop iterated on the nan
-silently; the damage surfaced only in a benchmark JSON
-(benchmarks/results_findk_1m.json).  The reference asserts on its bound
-in the hot path (/root/reference/src/modules/stm.py:534,1117).  These
+silently; the damage surfaced only in a benchmark's output.  The
+reference asserts on its bound in the hot path (its src/modules/stm.py:534,1117).  These
 tests reproduce the scenario's signature (per-doc eta overflow: the
 quadratic bound term hits f32 inf with mixed signs, summing to nan,
 while softmax-theta stays finite) and pin that both drivers now fail

@@ -3,6 +3,8 @@
 Runs on the 8 virtual CPU devices forced in conftest.py; validates the
 shard_map + psum E-step (SURVEY.md §4 "multi-chip determinism tests")."""
 
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -79,15 +81,14 @@ def test_make_mesh_raises_on_insufficient_devices():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
 def test_graft_entry_dryrun_multichip():
-    """The driver gate: hermetic subprocess dry run with bound parity.
-
-    Round 1 failed this gate because the in-process dry run inherited
-    the parent's TPU backend (MULTICHIP_r01.json); the subprocess
-    design must pass regardless of parent backend state."""
+    """The multi-device gate: hermetic subprocess dry run with bound
+    parity.  The subprocess design must pass regardless of the parent's
+    backend state (an in-process run would inherit it)."""
     import sys
-    sys.path.insert(0, "/root/repo")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
     try:
         import __graft_entry__ as g
         g.dryrun_multichip(8)
     finally:
-        sys.path.remove("/root/repo")
+        sys.path.remove(repo)

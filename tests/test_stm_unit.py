@@ -400,7 +400,7 @@ def test_serving_eta_mean_excludes_empty_docs(tmp_path, toy_corpus,
 def test_init_state_has_strong_typed_overflow_counter():
     """Regression: a weak-typed python-int straggler_overflow gave
     iteration 1 a different aval than the int32 array the EM step
-    returns, silently forcing a full-graph retrace (2-6 min per TPU
+    returns, silently forcing a full-graph retrace (a whole new
     compile) on iteration 2 of every fresh fit."""
     import jax
     import jax.numpy as jnp

@@ -92,7 +92,7 @@ def test_streamed_matches_in_memory(n_parts):
 
 def test_streamed_provider_callable():
     """Callable provider: parts regenerated per call (the on-device-DGP
-    pattern of benchmarks/million_docs.py)."""
+    pattern of a corpus generated on the device)."""
     N, K, V, n_parts = 64, 3, 80, 2
     words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V, seed=1)
     cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16,

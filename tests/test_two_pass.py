@@ -156,8 +156,6 @@ def test_config_validates_two_pass():
         STMConfig(K=3, newton_pass1_iters=30, newton_max_iters=24)
     with pytest.raises(ValueError, match="straggler_frac"):
         STMConfig(K=3, newton_pass1_iters=4, newton_straggler_frac=0.0)
-    with pytest.raises(ValueError, match="two-pass"):
-        STMConfig(K=3, newton_pass1_iters=4, use_pallas=True)
 
 
 def test_straggler_overflow_diagnostic():
@@ -187,17 +185,6 @@ def test_straggler_overflow_diagnostic():
     # single-pass path reports 0
     res_single = run_estep(*args, cfg=NewtonConfig(max_iters=24), batch_size=16)
     assert int(res_single.straggler_overflow) == 0
-
-
-def test_run_estep_rejects_pallas_plus_two_pass():
-    beta, mu, eta0, sigma, words, counts, aspects, doc_ok = _problem(N=16)
-    siginv, sent = precompute_sigma(jnp.asarray(sigma))
-    args = [jnp.asarray(x) for x in (beta, mu, eta0)] + [siginv, sent] + [
-        jnp.asarray(x) for x in (words, counts, aspects, doc_ok)
-    ]
-    with pytest.raises(ValueError, match="pass1_iters"):
-        run_estep(*args, cfg=NewtonConfig(), batch_size=16,
-                  pass1_iters=2, use_pallas=True)
 
 
 # ---------------------------------------------------------------------------

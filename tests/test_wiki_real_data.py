@@ -99,7 +99,7 @@ def test_wiki_fit_with_spline_prevalence(wiki_corpus):
 
 
 def test_f32_matches_f64_oracle_at_wiki_scale(wiki_corpus):
-    """SURVEY hard part #6: float32-on-TPU numerics at real scale.
+    """SURVEY hard part #6: float32 device numerics at real scale.
     The f32 ELBO trajectory must track the float64 scipy oracle
     (max rel diff measured 1.9e-4 over the full corpus; this test uses
     a 400-doc subsample to stay fast)."""
